@@ -58,7 +58,7 @@ def _phase(name):
 
 def _fabricate_run(run_dir, session_rec, spec, audio, words, eeg, eeg_sr):
     """Write the decode-run artifact set a live session would leave behind
-    (decode.py:186-211 / VERDICT run replayability)."""
+    (decode.py:186-211)."""
     import h5py
     from scipy.io.wavfile import write as wavwrite
 
@@ -76,8 +76,8 @@ def _fabricate_run(run_dir, session_rec, spec, audio, words, eeg, eeg_sr):
 
 
 def main(workdir="/tmp/eval_full", n_words=100, n_channels=64):
-    from closed_loop_seeg_speech_synthesis_tpu.utils import honor_platform_env
-    honor_platform_env()
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+    setup_runtime()
     import h5py
     import jax
     import jax.numpy as jnp
@@ -161,7 +161,7 @@ def main(workdir="/tmp/eval_full", n_words=100, n_channels=64):
             chance_s = time.perf_counter() - t0
         # "mini" in the metric name: 2 chance runs as a regression gate /
         # figure_3 input only — the protocol-scale 100-run number is
-        # benchmarks/exp1_protocol.py's (VERDICT r4 weak #6)
+        # benchmarks/exp1_protocol.py's
         _emit(metric="eval_full_exp1_mini_s", value=round(t.wall, 1), unit="s",
               staging_s=round(staging_s, 1), proposed_s=round(proposed_s, 1),
               chance_s=round(chance_s, 1), chance_runs=2,

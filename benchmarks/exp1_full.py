@@ -3,10 +3,8 @@
 Times the evaluation suite's heaviest workload at the reference's scale
 (eval_steps/exp1.py runs 10 CV folds of full retrain+decode serially through
 a ThreadPool(1), exp1.py:111,142).  Here the proposed-method folds run as
-vmapped device programs (eval/exp1_batched.make_proposed_runner, chunked to
-fit HBM) and the chance level as a vmapped shift batch.  Round-1 sequential
-baseline on the same synthetic session: proposed 305 s; 3 batched chance
-runs 313 s (BENCHMARKS.md).
+batched device programs (eval/exp1_batched.make_proposed_runner, lax.map
+over folds) and the chance level as a batched shift run.
 
 Prints one JSON line per phase: wall seconds + mean per-bin Pearson r
 (sanity: proposed >> chance on word-locked synthetic data).
@@ -30,8 +28,8 @@ sys.path.insert(0, os.path.join(_ROOT, "examples"))
 
 
 def main(workdir="/tmp/exp1_full", n_words=100, n_channels=64, chance_runs=3):
-    from closed_loop_seeg_speech_synthesis_tpu.utils import honor_platform_env
-    honor_platform_env()
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+    setup_runtime()
     from demo import make_synthetic_session
     from closed_loop_seeg_speech_synthesis_tpu.eval import exp1 as exp1_mod
     from closed_loop_seeg_speech_synthesis_tpu.runtime import params as params_io
@@ -64,7 +62,7 @@ def main(workdir="/tmp/exp1_full", n_words=100, n_channels=64, chance_runs=3):
     t_prop = time.perf_counter() - t0
     r_prop = float(np.mean(pm_mean))
 
-    # per-fold quality guard: a mean-only check once hid a TPU vmap
+    # per-fold quality guard: a mean-only check once hid an XLA vmap
     # miscompile that zeroed entire folds' models (lanes 0-1 of each chunk)
     # while later folds stayed perfect — every fold must decode well.
     reco = np.load(os.path.join(dest, "pm_reco.npy"))

@@ -3,7 +3,7 @@
 The CI test (tests/test_io.py) only guards bit-identical output plus a very
 loose wall-clock sanity bound, because identical work varies up to ~80x on
 the virtualized single-core CI host.  The throughput claim lives here
-instead (ADVICE r2 #4): interleaved min-of-N timings of both parsers on the
+instead: interleaved min-of-N timings of both parsers on the
 same in-memory file, emitting the ratio where regressions are visible.
 
 Run:  python benchmarks/native_scan.py [n_seconds] [reps]
@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
 
 def main(n_seconds=120.0, reps=5):
-    from closed_loop_seeg_speech_synthesis_tpu.utils import honor_platform_env
-    honor_platform_env()
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+    setup_runtime()
     from test_io import write_test_xdf  # the spec-conformant fixture writer
     from closed_loop_seeg_speech_synthesis_tpu.io import xdf
 

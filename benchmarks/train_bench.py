@@ -1,4 +1,4 @@
-"""Training-path benchmark: the TPU trainer vs a reference-architecture CPU twin.
+"""Training-path benchmark: the JAX trainer vs a reference-architecture CPU twin.
 
 The reference's second entrypoint is offline training (train.py:132-168):
 sosfilt the whole recording through the high-gamma chain, windowed
@@ -8,10 +8,10 @@ spectrogram targets, logistic quantization, per-feature Spearman selection
 below re-implements exactly that architecture with scipy/sklearn/numpy
 (freshly written from the published formulas; the SOS coefficients come
 from this repo's own mne-matched designer so both arms filter identically).
-The TPU arm is `runtime.trainer.train` — the same math as one JAX program
+The JAX arm is `runtime.trainer.train` — the same math as one JAX program
 batch (blocked state-space IIR, batched Gram-eigh LDA).
 
-Both arms run on the same synthetic session; the TPU arm reports the
+Both arms run on the same synthetic session; the JAX arm reports the
 steady-state wall (second call, fresh data, no recompile) plus the
 first-call wall (compile included) and a phase decomposition.
 
@@ -115,8 +115,8 @@ def cpu_reference_train(eeg, audio, eeg_sr=1024.0, nb_mel=40, nb_intervals=9,
 
 
 def main(duration_s=1800.0, n_channels=128):
-    from closed_loop_seeg_speech_synthesis_tpu.utils import honor_platform_env
-    honor_platform_env()
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+    setup_runtime()
     duration_s, n_channels = float(duration_s), int(n_channels)
 
     from closed_loop_seeg_speech_synthesis_tpu.runtime import trainer

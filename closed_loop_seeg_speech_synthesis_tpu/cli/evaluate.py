@@ -11,6 +11,7 @@ import sys
 import numpy as np
 
 from ..io import config as config_mod
+from ..utils import setup_runtime
 
 logger = logging.getLogger("cli.evaluate")
 
@@ -21,6 +22,7 @@ def main(argv=None):
     parser.add_argument("step", choices=["exp1", "exp2", "exp3", "exp4", "figure3", "figure4", "extract_trials"])
     parser.add_argument("--channels_file", help="File with one channel name per line (exp4).")
     args = parser.parse_args(argv)
+    setup_runtime()
 
     config = config_mod.load_config(args.config)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,

@@ -23,12 +23,17 @@ from ..io.loaders import load_speech_file
 from ..io.utils import select_channels, squeeze_audio_to_float64
 from ..runtime import params as params_io
 from ..runtime import trainer
+from ..utils import setup_runtime
 
 logger = logging.getLogger("cli.train")
 
 
 def visualize_train_data(x_train, d_spectrogram, filename, max_samples=5000):
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        logger.warning("matplotlib is not installed; skipping %s", filename)
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -44,7 +49,11 @@ def visualize_train_data(x_train, d_spectrogram, filename, max_samples=5000):
 
 def visualize_model_parameters(lda_params, filename):
     """Per-bin first-discriminant coefficients (reference train.py:46-64)."""
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        logger.warning("matplotlib is not installed; skipping %s", filename)
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -68,6 +77,7 @@ def main(argv=None):
     parser.add_argument("--storage_dir", help="Path to the storage_dir.")
     parser.add_argument("--channels", help="Comma separated channel regex patterns.")
     args = parser.parse_args(argv)
+    setup_runtime()
 
     config = config_mod.load_config(args.config)
     config_mod.merge_args(config, {

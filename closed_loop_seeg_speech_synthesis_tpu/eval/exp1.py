@@ -8,7 +8,7 @@ repeats this with the training sEEG circularly split at a random index to
 break neural/audio alignment (exp1.py:94-99).
 
 The reference serializes everything through ThreadPool(processes=1)
-(exp1.py:111,142); here each fold's train+decode runs as compiled TPU
+(exp1.py:111,142); here each fold's train+decode runs as compiled device
 programs, and folds simply loop on the host.
 """
 
@@ -102,7 +102,7 @@ class Experiment1:
 
         # fold staging is embarrassingly parallel and GIL-light (numpy bool
         # masking, scipy decimate, XLA spectrogram all release the GIL) —
-        # threads cut the cold-start staging wall ~Nx (VERDICT r3 #6)
+        # threads cut the cold-start staging wall ~Nx
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=min(len(folds), os.cpu_count() or 4)) as ex:
@@ -128,7 +128,7 @@ class Experiment1:
 
         The fold axis runs through ``lax.map`` — sequential lanes of the
         proven-correct unbatched program (see make_proposed_runner for the
-        TPU vmap miscompile this avoids) — so peak HBM is one fold's working
+        XLA vmap miscompile this avoids) — so peak HBM is one fold's working
         set and all 10 folds fit in one call.  ``fold_batch`` still bounds
         host-side stacking per call."""
         from .exp1_batched import fold_targets, make_proposed_runner
@@ -173,7 +173,7 @@ class Experiment1:
                             jax.random.fold_in(key, k))
 
                 # per-fold target staging in threads (quantization + masked
-                # f64 copies release the GIL) — VERDICT r3 #6
+                # f64 copies release the GIL)
                 from concurrent.futures import ThreadPoolExecutor
 
                 with ThreadPoolExecutor(max_workers=min(len(chunk), os.cpu_count() or 4)) as ex:
@@ -194,7 +194,7 @@ class Experiment1:
                         fold_batch=10):
         # No silent sequential fallback: a swallowed device-path failure
         # masks regressions (and wouldn't catch silent corruption anyway —
-        # a TPU vmap miscompile zeroed 4 of 10 folds without raising; the
+        # an XLA vmap miscompile zeroed 4 of 10 folds without raising; the
         # lax.map runners fixed it).  _run_folds stays as the parity twin.
         # ``args`` lets callers reuse pre-staged fold datasets (the host
         # staging dominates the wall; see benchmarks/eval_full.py).
@@ -230,7 +230,7 @@ class Experiment1:
     def chance_level_batched(self, nb_runs=100, nb_folds=10, batch_size=10,
                              dtype=jnp.float32, key=None, save=True, nb_feats=150,
                              base_args=None, checkpoint_dir=None):
-        """TPU fan-out of the chance estimation (SURVEY §7: the reference's
+        """Device fan-out of the chance estimation (SURVEY §7: the reference's
         most expensive loop, run serially there).
 
         The randomization only circularly shifts the training sEEG
@@ -273,7 +273,7 @@ class Experiment1:
                     fold_recos.append(done)
                     origs.append(y_test)
                     continue
-            # per-chunk checkpoints within the fold: a relay-worker crash
+            # per-chunk checkpoints within the fold: a crashed process
             # mid-fold resumes at chunk granularity (batch_size runs), not
             # by redoing the whole 100-run fold
             chunk_cks = {}

@@ -2,7 +2,7 @@
 interactive MNE raw-data view, ``train.py:328-334``).
 
 The reference optionally blocks training on an interactive GUI where the
-experimenter marks bad channels.  On a headless TPU host that becomes a
+experimenter marks bad channels.  On a headless compute host that becomes a
 report: per-channel PSD + variance statistics over the first minute of the
 recording, written as a PNG + CSV next to the training artifacts, with
 suspect channels flagged (railed/dead/extreme-variance/line-dominated) so

@@ -13,7 +13,6 @@ from __future__ import annotations
 import logging
 import os
 
-import h5py
 import numpy as np
 
 from . import xdf as xdf_mod
@@ -22,6 +21,8 @@ logger = logging.getLogger("io.loaders")
 
 
 def load_hdf5(path, return_markers=False):
+    import h5py
+
     with h5py.File(path, "r") as hf:
         eeg = hf["sEEG"][:]
         audio = hf["Audio"][:].astype(np.float64)
@@ -41,6 +42,8 @@ def load_hdf5(path, return_markers=False):
 
 def save_hdf5(path, eeg, eeg_sr, audio, audio_sr, ch_names=None, markers=None):
     """Writer for the same layout (used by tests / the dev streamer)."""
+    import h5py
+
     with h5py.File(path, "w") as hf:
         hf.create_dataset("sEEG", data=np.asarray(eeg))
         hf.create_dataset("Audio", data=np.asarray(audio))

@@ -13,7 +13,6 @@ from __future__ import annotations
 import logging
 import os
 
-import h5py
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import decimate
@@ -88,6 +87,8 @@ class DecodingRun(_TrialMixin):
         self.trial_starts_in_sec = np.asarray(starts)
         self.words = words
         self.word_starts_indices_audio = (self.trial_starts_in_sec * self.audio_sr).astype(int)
+
+        import h5py
 
         with h5py.File(os.path.join(run_dir, "sEEG.hdf"), "r") as f:
             self.eeg = f["sEEG"][...]

@@ -1,16 +1,16 @@
-"""Linear Discriminant Analysis, batched across mel bins on TPU.
+"""Linear Discriminant Analysis, batched across mel bins.
 
 The reference fits 40 independent sklearn ``LinearDiscriminantAnalysis()``
 models (default svd solver), one per mel bin, on the same 150-dim feature
 matrix with different 9-class quantization labels (``train.py:156-166``), and
 predicts one class per bin per frame (``livenodes/LDASynthesis.py:19-28``).
 
-TPU-first redesign:
+Batched redesign:
 
 * fit: all 40 bins in one pass.  The per-bin labels differ but X is shared,
   so per-class sums/counts are segment reductions, and the svd of the scaled
   within-class scatter is computed from the (150, 150) Gram matrix — one big
-  MXU matmul per bin batch — followed by a vmapped eigendecomposition.  This
+  matmul per bin batch — followed by a vmapped eigendecomposition.  This
   reproduces sklearn's svd-solver ``coef_``/``intercept_`` within numerical
   tolerance (the final discriminant is invariant to the internal sign/basis
   choices because it only uses ``scalings_ @ scalings_.T``).
@@ -58,7 +58,7 @@ class LDAParams:
     def n_bins(self) -> int:
         return self.coef.shape[0]
 
-_HI = jax.lax.Precision.HIGHEST  # keep f32 accumulation on the TPU MXU
+_HI = jax.lax.Precision.HIGHEST  # full float32 products (no TF32/bf16 passes)
 
 
 

@@ -25,8 +25,8 @@ def _rank_average_cols(X: jnp.ndarray) -> jnp.ndarray:
     the average rank of x over its tie group (1-based positions lo+1..hi) is
     ``(lo + hi + 1) / 2`` — evaluated directly at the original positions via
     two searchsorteds into the sorted column, no argsort+scatter round trip.
-    (The earlier per-column vmap of argsort + ``.at[order].set`` took 80 s at
-    (184k, 320) and crashed the TPU worker outright at F >= 512.)
+    (A per-column vmap of argsort + ``.at[order].set`` is far slower at
+    (184k, 320) and needs much more device memory at F >= 512.)
     """
     sv = jnp.sort(X, axis=0)
 
@@ -47,7 +47,9 @@ def spearman_vs_target(X: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     rx = _rank_average_cols(X)
     rxc = rx - jnp.mean(rx, axis=0)
     ryc = ry - jnp.mean(ry)
-    num = rxc.T @ ryc
+    # HIGHEST: a default-precision float32 matmul runs in TF32 on GPUs, which
+    # perturbs rho enough to reorder near-tied features
+    num = jnp.matmul(rxc.T, ryc, precision=jax.lax.Precision.HIGHEST)
     # zero variance -> NaN, matching scipy.stats.spearmanr: the reference's
     # np.argsort(|cs|) then sorts NaNs LAST, i.e. a constant-but-nonzero
     # (railed) channel lands INSIDE the selected features (train.py:96-109).

@@ -39,7 +39,7 @@ import jax.numpy as jnp
 # Host-side schedules (exact reference arithmetic)
 # ---------------------------------------------------------------------------
 
-_HI = jax.lax.Precision.HIGHEST  # keep f32 accumulation on the TPU MXU
+_HI = jax.lax.Precision.HIGHEST  # full float32 products (no TF32/bf16 passes)
 
 
 
@@ -177,7 +177,7 @@ def periodic_window_matrix(ends: np.ndarray, win: int):
 
     The streaming grid repeats every P frames spanning exactly Ls samples
     (shift_table): e_{i+P} = e_i + Ls.  Window sums then become ONE matmul
-    per period against a (P, Ls + win) 0/1 matrix — MXU instead of a 48 GB
+    per period against a (P, Ls + win) 0/1 matrix — a dense matmul instead of a 48 GB
     sliding reduce_window.
 
     Returns (S (P, 2*Ls), Ls, P) or None if the schedule isn't usable

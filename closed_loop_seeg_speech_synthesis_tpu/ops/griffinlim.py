@@ -1,4 +1,4 @@
-"""Griffin-Lim vocoders, batched for TPU.
+"""Griffin-Lim vocoders, batched over blocks.
 
 Two variants, matching the reference's two implementations:
 

@@ -1,6 +1,6 @@
 """Reference-exact host vocoder (byte-reproduces ``livenodes/GriffinLim.py``).
 
-The TPU pipeline's Pallas/jnp Griffin-Lim is the production vocoder; this
+The device pipeline's jnp Griffin-Lim is the production vocoder; this
 NumPy twin exists for acceptance testing and byte-level reproducibility
 against recordings made with the reference system.  It reproduces the
 reference node bit-for-bit, including two quirks a clean implementation
@@ -18,7 +18,7 @@ would not have:
   samples (then 161 later).  Block placement in the overlap-add buffer
   follows the same jittered positions, so between a short and its
   compensating long chunk the whole waveform is offset by one sample
-  relative to the exact 160-per-frame grid the TPU pipeline uses.  This is
+  relative to the exact 160-per-frame grid the device pipeline uses.  This is
   why byte-parity with the reference requires replicating the schedule, not
   just the math.
 

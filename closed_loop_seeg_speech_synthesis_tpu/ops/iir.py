@@ -1,11 +1,11 @@
-"""Causal IIR filtering as TPU-friendly linear state-space operators.
+"""Causal IIR filtering as block-parallel linear state-space operators.
 
 The reference streams every sEEG chunk through cascades of order-8
 Butterworth second-order sections with persistent state
 (``livenodes/FrameBuffer.py:139-143`` via ``scipy.signal.sosfilt``), and the
 vocoder output through an order-5 low-pass ``lfilter``
 (``livenodes/GriffinLim.py:169-170``).  A literal per-sample translation
-would serialize the TPU; instead we exploit that an LTI filter is a linear
+would serialize the accelerator; instead we exploit that an LTI filter is a linear
 recurrence:
 
     s[t+1] = A s[t] + B u[t]        y[t] = C s[t] + D u[t]
@@ -19,8 +19,7 @@ recurrence:
 * ``make_blocked_iir`` + ``iir_blocked``: block processing.  Within a block
   of L samples the output is the sum of (i) the zero-input response
   ``Cpow @ s0`` and (ii) a causal convolution with the truncated impulse
-  response, expressed as an (L, L) lower-triangular Toeplitz matmul that runs
-  on the MXU.  Block boundary states propagate through an associative scan
+  response, expressed as an (L, L) lower-triangular Toeplitz matmul.  Block boundary states propagate through an associative scan
   of (A^L, q_k) pairs — O(log K) depth instead of O(T) sequential steps.
 
 All block operators are precomputed on the host in float64 and cast to the
@@ -231,9 +230,10 @@ def make_blocked_iir(ss: StateSpace, block: int, dtype=jnp.float32) -> BlockedII
     )
 
 
-_HI = jax.lax.Precision.HIGHEST  # f32 MXU accumulation: the IIR
-# recurrence and boundary scan are feedback paths where TPU default
-# (bf16 products) injects ~1e-2 relative noise (docs/NUMERICS.md)
+_HI = jax.lax.Precision.HIGHEST  # full float32 products: the IIR
+# recurrence and boundary scan are feedback paths where reduced-precision
+# products (TF32 / bf16 passes) inject ~1e-3..1e-2 relative noise
+# (docs/NUMERICS.md)
 
 
 def _boundary_states(A_L, q, s0):
@@ -257,7 +257,7 @@ def iir_blocked(op: BlockedIIR, x: jnp.ndarray, s0: jnp.ndarray):
     """Filter x: (T, C) from state s0: (S, C).  Returns (y (T, C), sT (S, C)).
 
     Equivalent to scipy.signal.sosfilt / lfilter with zi=s0 (same state
-    coordinates), evaluated block-parallel on the MXU.  For single-channel
+    coordinates), evaluated block-parallel as matmuls.  For single-channel
     signals (the vocoder's audio low-pass) the Toeplitz contraction is
     expressed with the block index as the matmul M dimension — (K, L) @
     (L, L) — instead of K batched skinny matmuls.

@@ -22,7 +22,7 @@ import numpy as np
 
 FUZZ = 1e-7
 
-_HI = jax.lax.Precision.HIGHEST  # keep f32 accumulation on the TPU MXU
+_HI = jax.lax.Precision.HIGHEST  # full float32 products (no TF32/bf16 passes)
 
 
 

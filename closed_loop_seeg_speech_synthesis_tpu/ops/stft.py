@@ -1,7 +1,7 @@
-"""Small-FFT STFT as MXU matmuls.
+"""Small-FFT STFT as matmuls.
 
 The vocoder works on 256-point FFTs of 2-frame blocks
-(``livenodes/GriffinLim.py:50,64-74``).  XLA's TPU FFT is fine for large
+(``livenodes/GriffinLim.py:50,64-74``).  An FFT library is fine for large
 transforms, but at size 256 an explicit real DFT as two (N, N/2+1) matmuls
 batches perfectly over thousands of frames and fuses with the surrounding
 elementwise work, so that is the default; matrices are built host-side in
@@ -18,7 +18,7 @@ import numpy as np
 import scipy.signal.windows as _win
 
 
-_HI = jax.lax.Precision.HIGHEST  # keep f32 accumulation on the TPU MXU
+_HI = jax.lax.Precision.HIGHEST  # full float32 products (no TF32/bf16 passes)
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass

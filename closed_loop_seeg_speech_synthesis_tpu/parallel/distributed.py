@@ -25,9 +25,9 @@ import sys
 def initialize(coordinator_address: str, num_processes: int, process_id: int):
     """Connect this process to the jax.distributed coordination service.
 
-    Call before any jax computation.  On real pods the TPU runtime discovers
-    its slice topology from the environment; here the three arguments are
-    explicit so CPU dryruns and heterogeneous lab hosts work the same way.
+    Call before any jax computation.  The three arguments are explicit
+    (nothing in the environment announces a cluster), so CPU dryruns and
+    heterogeneous lab hosts work the same way.
     """
     import jax
 

@@ -1,7 +1,7 @@
 """Device mesh construction and shardings.
 
 The reference has no multi-device compute (SURVEY.md §2: its only transports
-are LSL between machines and multiprocessing pipes on one host).  The TPU
+are LSL between machines and multiprocessing pipes on one host).  This
 framework scales two ways:
 
 * ``data`` axis — embarrassingly parallel replay/evaluation fan-out: CV

@@ -11,7 +11,7 @@ and one jit compiles the full pipeline
 XLA inserts the collectives from the sharding annotations; there are no
 hand-written NCCL-style calls.
 
-``batched_replay`` fans offline decoding out across the mesh — the TPU
+``batched_replay`` fans offline decoding out across the mesh — the device
 version of exp1's 10 folds x 100 chance-level runs that the reference runs
 serially in a ThreadPool(1) (exp1.py:111,142).
 """

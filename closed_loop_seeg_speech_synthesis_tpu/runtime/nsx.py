@@ -7,9 +7,11 @@ plain C ABI + ctypes keeps the binding dependency-free).
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -21,6 +23,21 @@ _lock = threading.Lock()
 
 def _build():
     subprocess.run(["make", "-C", _NATIVE_DIR], check=True, capture_output=True)
+
+
+def stream_info(name: str, timeout: float = 5.0) -> dict:
+    """A stream's registry entry (name, type, port, channels, srate, fmt),
+    read WITHOUT subscribing to it; polls until it appears or ``timeout``."""
+    path = os.path.join(os.environ.get("NSX_REGISTRY_DIR", "/tmp/nsx"), name + ".json")
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (FileNotFoundError, ValueError):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"stream {name!r} not found within {timeout}s") from None
+            time.sleep(0.05)
 
 
 def load_library():

@@ -9,27 +9,38 @@ The reference persists (train.py:171-205):
 
 We write/read the same files so reference checkpoints and ours are mutually
 loadable, and additionally store plain-array LDA tensors (``lda_*`` datasets)
-so decoding never *requires* unpickling sklearn objects.
+so decoding never *requires* unpickling sklearn objects.  Without
+scikit-learn only the plain arrays are written: ``LDAs.pkl`` and the pickled
+estimator blob are skipped with a warning.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 
-import h5py
 import numpy as np
 
 from ..models import lda as lda_mod
 
+logger = logging.getLogger("runtime.params")
+
 
 def store_training(session_dir: str, result, bad_channels, config=None, x_train_full=None) -> str:
     """Persist a runtime.trainer.TrainResult to the reference layout."""
-    os.makedirs(session_dir, exist_ok=True)
-    estimators = lda_mod.to_sklearn_estimators(result.lda)
+    import h5py
 
-    with open(os.path.join(session_dir, "LDAs.pkl"), "wb") as f:
-        pickle.dump(estimators, f)
+    os.makedirs(session_dir, exist_ok=True)
+    try:
+        estimators = lda_mod.to_sklearn_estimators(result.lda)
+    except ImportError:
+        logger.warning("scikit-learn is not installed: writing the plain lda_* "
+                       "arrays only (no LDAs.pkl, no pickled estimators)")
+        estimators = None
+    if estimators is not None:
+        with open(os.path.join(session_dir, "LDAs.pkl"), "wb") as f:
+            pickle.dump(estimators, f)
 
     np.save(os.path.join(session_dir, "training_features.npy"),
             result.x_train if x_train_full is None else x_train_full)
@@ -38,7 +49,8 @@ def store_training(session_dir: str, result, bad_channels, config=None, x_train_
     with h5py.File(path, "w") as hf:
         hf.create_dataset("bad_channels", data=np.asarray(bad_channels, np.int64))
         hf.create_dataset("medians_array", data=result.medians)
-        hf.create_dataset("estimators", data=np.void(pickle.dumps(estimators)))
+        if estimators is not None:
+            hf.create_dataset("estimators", data=np.void(pickle.dumps(estimators)))
         hf.create_dataset("select", data=np.asarray(result.select, np.int64))
         # plain-array twin of the pickled blob (framework-native load path)
         hf.create_dataset("lda_coef", data=np.asarray(result.lda.coef, np.float64))
@@ -53,6 +65,15 @@ def store_training(session_dir: str, result, bad_channels, config=None, x_train_
     return path
 
 
+def as_loaded(result, bad_channels) -> dict:
+    """The dict ``load_params`` returns, built from an in-memory
+    runtime.trainer.TrainResult (no artifact round trip)."""
+    return {"medians": np.asarray(result.medians),
+            "bad_channels": np.asarray(bad_channels, int),
+            "select": np.asarray(result.select).astype(int),
+            "lda": result.lda}
+
+
 def load_params(path: str, dtype=None):
     """Load a ``params.h5`` (ours or the reference's).
 
@@ -60,6 +81,7 @@ def load_params(path: str, dtype=None):
     from plain arrays when present, else from the pickled estimators
     (decode.py:298-306 semantics).
     """
+    import h5py
     import jax.numpy as jnp
 
     dtype = dtype or jnp.float32

@@ -9,7 +9,8 @@ the same parameters and numerics:
   output is provably chunk-size invariant (filters carry state, frames sit on
   an absolute-time grid), so file replay (``decode.py:71-96``) needs no
   packet simulation at all: blocked state-space IIR -> sliding log-power ->
-  one LDA einsum -> batched Griffin-Lim.  This is the >1000x real-time path.
+  one LDA einsum -> batched Griffin-Lim (north star: >1000x real time,
+  BASELINE.md).
 
 * ``OnlineDecoder`` — one jitted ``step(carry, packet)`` whose carry holds
   every piece of streaming state (filter states, sample history, feature
@@ -38,13 +39,13 @@ from ..ops import framing, iir, quantization, smoothing
 from ..ops import griffinlim as gl
 
 
-_HI = jax.lax.Precision.HIGHEST  # keep f32 accumulation on the TPU MXU
+_HI = jax.lax.Precision.HIGHEST  # full float32 products (no TF32/bf16 passes)
 
 
 def default_compute_dtype():
-    """float32 on accelerators (enables the fused pallas paths); float64 on
-    CPU, enabling x64 so the golden numerics are actually computed — without
-    this, float64 requests silently truncate to float32 (JAX default)."""
+    """float32 on accelerators; float64 on CPU, enabling x64 so the golden
+    numerics are actually computed — without this, float64 requests silently
+    truncate to float32 (JAX default)."""
     if jax.default_backend() == "cpu":
         jax.config.update("jax_enable_x64", True)
         return jnp.float64
@@ -76,66 +77,6 @@ class DecoderConfig:
     audio_sr: int = 16000
     iir_block: int = 256
     dtype: Any = jnp.float32
-    # Fused VMEM-resident Griffin-Lim kernel for the float32 TPU batch path
-    # (1.7x on the vocoder stage).  Waveforms differ from the jnp path within
-    # the exp(angle) iteration's intrinsic cross-backend sensitivity (the
-    # same jnp code already diverges O(1) between CPU and TPU); golden
-    # equality tests run the jnp path in float64.
-    use_pallas_gl: bool = True
-    # Fuse the vocoder tail (cross-block overlap-add + window-sum
-    # normalization + 7.9 kHz low-pass + int16) into the Griffin-Lim kernel:
-    # the (B, 480) reconstructed blocks never reach HBM and the low-pass
-    # Toeplitz shrinks 4096 -> 160 per sample (its HIGHEST-precision matmul
-    # dominated the old tail stage; boundary states come from a truncated
-    # power sum, see ops/pallas_gl._gl_audio_kernel).  "auto" = on whenever
-    # the pallas GL kernel runs.
-    use_pallas_gl_tail: Any = "auto"
-    # Run the Griffin-Lim frame/inverse matmuls in bfloat16 (operands cast,
-    # f32 accumulation).  The 8-iteration phase recursion is chaotic under
-    # ANY precision change (the f32 pallas path already diverges from the
-    # f64 golden path per docs/NUMERICS.md), so this knob trades per-sample
-    # waveform identity for MXU throughput; the decoded spectrogram —
-    # everything upstream of the vocoder — is untouched.  Off by default:
-    # quality-gated tests (mel-domain r parity) rather than LSB parity.
-    gl_bf16: bool = False
-    # Fused filter-chain + log-power kernel (raw sEEG read from HBM once,
-    # boundary state carried in scratch across the sequential TPU grid).
-    use_pallas_frontend: bool = True
-    # Fuse the rest of the decode path (context stack + LDA + dequant +
-    # smooth) into the front-end kernel's epilogue: features and stacked
-    # context never reach HBM, only (P, n_mel) rows per period are written.
-    # "auto" = on: with the multi-period grid (epilogue_periods below) the
-    # fused kernel beats the separate frontend+XLA epilogue at every swept
-    # channel count (64ch +14%, 128ch +10%, 256ch +34%; benchmarks/sweeps.py
-    # fused_periods sweep).
-    use_pallas_epilogue: Any = "auto"
-    # Periods per fused-kernel grid step (G): the filter recurrence stays
-    # sequential (unrolled over G sub-periods) but the epilogue then runs on
-    # G*P frame rows at once — fewer, larger matmuls amortize the sequential
-    # grid.  "auto" picks from the round-3 interleaved matrix sweep
-    # (benchmarks/sweeps.py sweep_matrix, quiet host, min-of-5): G=8 is the
-    # best measured point at every swept channel count (64ch 21,913x /
-    # 128ch 21,950x / 256ch 21,736x vs split 20,744x / 20,105x / 18,186x);
-    # the round-2 G=4/G=2 policy came from a contention-noised dataset.
-    epilogue_periods: Any = "auto"
-
-    @property
-    def fused_gl_tail(self) -> bool:
-        if self.use_pallas_gl_tail == "auto":
-            return True
-        return bool(self.use_pallas_gl_tail)
-
-    @property
-    def fused_epilogue(self) -> bool:
-        if self.use_pallas_epilogue == "auto":
-            return True
-        return bool(self.use_pallas_epilogue)
-
-    @property
-    def fused_periods(self) -> int:
-        if self.epilogue_periods == "auto":
-            return 8
-        return int(self.epilogue_periods)
 
     @property
     def win(self) -> int:
@@ -164,14 +105,13 @@ class DecoderParams:
     lda: lda_mod.LDAParams
     lda_coef_full: jnp.ndarray                 # (n_bins, k, n_stacked): coef scattered to
                                                # full stacked width — select-gather becomes
-                                               # part of one MXU matmul
+                                               # part of one matmul
     medians: jnp.ndarray                       # (n_mel, n_intervals)
     gauss_kernel: jnp.ndarray                  # (5,)
     gl_ops: gl.StreamingGLOps
     lowpass_op: iir.BlockedIIR                 # vocoder output low-pass (block=160, online)
     lowpass_op_batch: iir.BlockedIIR           # same filter at block=4096 (offline audio)
     shift_table: jnp.ndarray                   # (period,) int32 frame shifts
-    frontend_ops: Any                          # FrontendOps or None (fused f32 kernel)
     smooth_pos: Any = None                     # (n_mel, 5) int32 reflect positions
     smooth_table: Any = None                   # (n_mel, K^5) f64 exact smoothing
                                                # lattice (bit-exact golden path)
@@ -181,7 +121,7 @@ class DecoderParams:
             (self.filt_op, self.filt_op_pkt, self.filt_zi_scale, self.filt_s_const,
              self.zf_prefix, self.select, self.lda, self.lda_coef_full, self.medians,
              self.gauss_kernel, self.gl_ops, self.lowpass_op, self.lowpass_op_batch,
-             self.shift_table, self.frontend_ops, self.smooth_pos, self.smooth_table),
+             self.shift_table, self.smooth_pos, self.smooth_table),
             None,
         )
 
@@ -207,19 +147,14 @@ def build_decoder_params(
     dt = cfg.dtype
     chain = fd.high_gamma_bank(cfg.sr, cfg.line_noise)
     combined, warm = iir.make_warmstart_chain(chain, cfg.prefill)
-    # block length = one schedule period when sane, enabling the fused
-    # frontend kernel (256 samples @1024 Hz, 512 @2048 Hz); the exact grid
-    # yields a periodic table at EVERY rate (ops/framing.shift_table)
+    # block length = one schedule period when sane (256 samples @1024 Hz,
+    # 512 @2048 Hz); the exact grid yields a periodic table at EVERY rate
+    # (ops/framing.shift_table)
     table = framing.shift_table(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr)
     Ls = int(table.sum()) if len(table) else 0
     block = Ls if 64 <= Ls <= 2048 else cfg.iir_block
     filt_op = iir.make_blocked_iir(combined, block, dt)
     filt_op_pkt = iir.make_blocked_iir(combined, cfg.packet_size, dt)
-    from ..ops.pallas_frontend import make_frontend_ops
-
-    frontend_ops = (make_frontend_ops(filt_op, warm.zf_prefix, cfg.frame_len_ms,
-                                      cfg.frame_shift_ms, cfg.sr, jnp.float32)
-                    if len(table) else None)
     lowpass_ss = iir.sos_to_statespace(fd.gl_output_lowpass_sos(cfg.audio_sr, cfg.frame_shift_ms))
     lda_cast = jax.tree.map(lambda x: x.astype(dt) if jnp.issubdtype(x.dtype, jnp.floating) else x, lda_params)
     sel = np.asarray(select, int)
@@ -240,7 +175,6 @@ def build_decoder_params(
         lowpass_op=iir.make_blocked_iir(lowpass_ss, 160, dt),
         lowpass_op_batch=iir.make_blocked_iir(lowpass_ss, 4096, dt),
         shift_table=jnp.asarray(table, jnp.int32),
-        frontend_ops=frontend_ops,
         **(_exact_smooth_fields(medians, dt) if exact_smooth else {}),
     )
 
@@ -287,7 +221,7 @@ def _frames_to_mel(params: DecoderParams, stacked: jnp.ndarray) -> jnp.ndarray:
 
     The feature-select gather is folded into the LDA weights
     (``lda_coef_full``) so prediction is one (N, 5C) @ (5C, bins*k) matmul;
-    the median lookup runs as a one-hot contraction — both MXU/VPU friendly,
+    the median lookup runs as a one-hot contraction — dense contractions,
     no gathers on the hot path.
     """
     scores = jnp.einsum("td,bkd->tbk", stacked, params.lda_coef_full,
@@ -322,81 +256,41 @@ def _frames_to_mel(params: DecoderParams, stacked: jnp.ndarray) -> jnp.ndarray:
 def _offline_decode_jit(params: DecoderParams, cfg: DecoderConfig, eeg: jnp.ndarray,
                         ends: jnp.ndarray, rand_init: jnp.ndarray,
                         window_S: jnp.ndarray | None = None, frame_plan=None):
-    use_fused = (cfg.use_pallas_frontend and cfg.dtype == jnp.float32
-                 and jax.default_backend() == "tpu"
-                 and params.frontend_ops is not None and frame_plan is not None)
-    if use_fused and cfg.fused_epilogue:
-        # fully fused: eeg -> mel frames in one kernel (filter chain,
-        # log-power, context stack, LDA, dequant, smooth); features/stacked
-        # context never reach HBM
-        from ..ops.pallas_frontend import epilogue_constants, frontend_decode_mels
-
-        n_frames = frame_plan[3]
-        x = eeg.astype(cfg.dtype)
-        s0 = params.filt_zi_scale[:, None] * x[0][None, :] + params.filt_s_const[:, None]
-        W5, bm, med_slot, smoothM = epilogue_constants(
-            params.lda_coef_full, params.lda.intercept, params.lda.valid,
-            params.lda.classes, params.medians, params.gauss_kernel,
-            cfg.n_channels, cfg.model_order)
-        mel_frames = frontend_decode_mels(params.frontend_ops, x, s0, W5, bm,
-                                          med_slot, smoothM, n_frames,
-                                          cfg.model_order, cfg.step_size,
-                                          periods_per_step=cfg.fused_periods)
-    elif use_fused:
-        from ..ops.pallas_frontend import frontend_logpower
-
-        n_frames = frame_plan[3]
-        x = eeg.astype(cfg.dtype)
-        s0 = params.filt_zi_scale[:, None] * x[0][None, :] + params.filt_s_const[:, None]
-        F = frontend_logpower(params.frontend_ops, x, s0, n_frames)
-    elif frame_plan is not None:
+    with jax.named_scope("filter_chain"):
         s_cat, _ = _streaming_filter_chain(params, cfg, eeg)
-        Ls, P, origin, n_frames = frame_plan
-        F = framing.windowed_logpower_periodic(s_cat, window_S, Ls, n_frames, origin)
-    else:
-        s_cat, _ = _streaming_filter_chain(params, cfg, eeg)
-        F = framing.windowed_logpower(s_cat, ends, cfg.win)
-    if not (use_fused and cfg.fused_epilogue):
+    with jax.named_scope("framing"):
+        if frame_plan is not None:
+            Ls, P, origin, n_frames = frame_plan
+            F = framing.windowed_logpower_periodic(s_cat, window_S, Ls, n_frames, origin)
+        else:
+            F = framing.windowed_logpower(s_cat, ends, cfg.win)
+    with jax.named_scope("context_lda_dequant_smooth"):
         stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
         mel_frames = _frames_to_mel(params, stacked)
+    return mel_frames, vocoder(params, cfg, mel_frames, rand_init)
 
-    use_pallas_gl = (cfg.use_pallas_gl and cfg.dtype == jnp.float32
-                     and jax.default_backend() == "tpu")
-    if use_pallas_gl and cfg.fused_gl_tail:
-        # one kernel: GL iterations + overlap-add + low-pass + int16; the
-        # (B, 480) block waveforms never reach HBM
-        from ..ops.pallas_gl import gl_audio_pallas
 
-        audio = gl_audio_pallas(mel_frames, rand_init, params.gl_ops,
-                                params.lowpass_op, float(cfg.gl_norm),
-                                cfg.gl_iterations, cfg.phase_bug,
-                                bf16=cfg.gl_bf16)
-        return mel_frames, audio
-    if use_pallas_gl:
-        from ..ops.pallas_gl import gl_blocks_pallas
-
-        re = gl_blocks_pallas(mel_frames, rand_init, params.gl_ops,
-                              cfg.gl_iterations, cfg.phase_bug,
-                              bf16=cfg.gl_bf16)
-    else:
+def vocoder(params: DecoderParams, cfg: DecoderConfig, mel_frames: jnp.ndarray,
+            rand_init: jnp.ndarray) -> jnp.ndarray:
+    """Batch vocoder: mel frames (N, n_mel) -> int16 audio ((N-1)*160,).
+    Griffin-Lim on every 2-frame block at once, then the cross-block
+    overlap-add, the output low-pass and the int16 conversion."""
+    with jax.named_scope("griffin_lim"):
         re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
                                     cfg.gl_iterations, cfg.phase_bug)
-    raw = gl.overlap_add_stream(re, params.gl_ops)
-    lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
-                            jnp.zeros((params.lowpass_op_batch.dim, 1), cfg.dtype))
-    audio = gl.to_int16(lp[:, 0], cfg.gl_norm)
-    return mel_frames, audio
+    with jax.named_scope("ola_lowpass_int16"):
+        raw = gl.overlap_add_stream(re, params.gl_ops)
+        lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
+                                jnp.zeros((params.lowpass_op_batch.dim, 1), cfg.dtype))
+        return gl.to_int16(lp[:, 0], cfg.gl_norm)
 
 
-def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg: np.ndarray,
-                   key: Optional[jax.Array] = None,
-                   rand_init: Optional[np.ndarray] = None):
-    """Decode a full recorded session.
-
-    eeg: (T, n_channels) raw sEEG (bad channels already excluded).
-    Returns (spectrogram (N, n_mel), audio int16 ((N-1)*160,)).
-    Equivalent to the reference's file-replay decode (decode.py:71-96).
-    """
+def offline_decode_args(params: DecoderParams, cfg: DecoderConfig, eeg,
+                        key: Optional[jax.Array] = None,
+                        rand_init: Optional[np.ndarray] = None) -> tuple:
+    """Positional arguments of ``_offline_decode_jit`` for one session: the
+    host-side frame schedule, Griffin-Lim inits and (for periodic schedules)
+    the window-selection matrix.  Also used to lower/compile the program."""
     T = eeg.shape[0]
     ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr, T + cfg.prefill)
     n_frames = len(ends)
@@ -409,10 +303,20 @@ def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg: np.ndarray,
         S, Ls, P, origin = pw
         window_S = jnp.asarray(S, cfg.dtype)
         frame_plan = (Ls, P, origin, n_frames)
-    spec, audio = _offline_decode_jit(params, cfg, jnp.asarray(eeg, cfg.dtype),
-                                      jnp.asarray(ends, jnp.int32), jnp.asarray(rand_init, cfg.dtype),
-                                      window_S, frame_plan)
-    return spec, audio
+    return (params, cfg, jnp.asarray(eeg, cfg.dtype), jnp.asarray(ends, jnp.int32),
+            jnp.asarray(rand_init, cfg.dtype), window_S, frame_plan)
+
+
+def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg: np.ndarray,
+                   key: Optional[jax.Array] = None,
+                   rand_init: Optional[np.ndarray] = None):
+    """Decode a full recorded session.
+
+    eeg: (T, n_channels) raw sEEG (bad channels already excluded).
+    Returns (spectrogram (N, n_mel), audio int16 ((N-1)*160,)).
+    Equivalent to the reference's file-replay decode (decode.py:71-96).
+    """
+    return _offline_decode_jit(*offline_decode_args(params, cfg, eeg, key, rand_init))
 
 
 # ---------------------------------------------------------------------------
@@ -592,8 +496,8 @@ def make_online_multi_step(params: DecoderParams, cfg: DecoderConfig, key: jax.A
     (``lax.scan`` over the packet axis of the exact same step body), so the
     decoded stream is bit-identical to K sequential ``make_online_step``
     dispatches.  Use where per-dispatch overhead dominates the step itself
-    and a persistent ``io_callback`` loop cannot run (e.g. through a
-    remote-compile relay): overhead amortizes ~K x at the price of buffering
+    and the persistent ``io_callback`` loop is not used: overhead amortizes
+    ~K x at the price of buffering
     K packets — (K-1) packet periods of added playout latency (the
     reference's own audio queue already tolerates ~4 packets / 128 ms,
     JackAudioSink.py:111-118).

@@ -115,10 +115,23 @@ def local_clock() -> float:
     return nsx.local_clock()
 
 
+def resolve_stream(name: str, timeout: float = 10.0, backend=None) -> tuple[int, float]:
+    """(channel count, nominal srate) of a named stream, without subscribing
+    to its data."""
+    if backend_name(backend) == "lsl":
+        streams = pylsl.resolve_byprop("name", name, timeout=timeout)
+        if not streams:
+            raise TimeoutError(f"LSL stream {name!r} not found")
+        return streams[0].channel_count(), streams[0].nominal_srate()
+    from . import nsx
+
+    info = nsx.stream_info(name, timeout)
+    return int(info["channels"]), float(info["srate"])
+
+
 def extract_sr(stream_name: str, timeout: float = 10.0, backend=None) -> int:
     """Resolve a stream and return its nominal srate (utils.py:87-93)."""
-    inlet = StreamInlet(stream_name, timeout=timeout, backend=backend)
-    sr = inlet.nominal_srate
+    _, sr = resolve_stream(stream_name, timeout=timeout, backend=backend)
     if sr == 0.0:
         logger.warning("Detected an irregular sampling rate for %s.", stream_name)
     return int(sr)

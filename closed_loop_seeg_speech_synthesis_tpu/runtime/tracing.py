@@ -2,7 +2,7 @@
 
 The reference hangs hidden timestamping Receivers off every node when
 ``Node.activate_timing()`` is set and collects them with
-``get_timing_info()`` (Node.py:11-19,52-69,133-140).  The TPU pipeline has
+``get_timing_info()`` (Node.py:11-19,52-69,133-140).  This pipeline has
 no node graph, so tracing hangs off named stages of the online loop instead:
 packet arrival, device step dispatch/return, audio handoff.  Same public
 shape: ``activate_timing()`` / ``get_timing_info() -> {stage: [(t, meta)]}``,

@@ -12,6 +12,7 @@ Run:  python examples/demo.py [workdir]
 import configparser
 import os
 import sys
+import tempfile
 import threading
 
 import numpy as np
@@ -20,44 +21,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def make_synthetic_session(path, n_words=20, eeg_sr=1024, audio_sr=48000, n_channels=16, seed=0):
-    """Word-locked data: each 3 s trial has 2 s of correlated high-gamma
-    activity + voiced audio, then 1 s of rest."""
+    """Word-locked data written as an HDF5 recording (io.synthetic): each 3 s
+    trial has 2 s of correlated high-gamma activity + voiced audio, then 1 s
+    of rest."""
     from closed_loop_seeg_speech_synthesis_tpu.io import loaders
+    from closed_loop_seeg_speech_synthesis_tpu.io.synthetic import synthetic_session
 
-    rng = np.random.RandomState(seed)
-    words = ["w{:02d}".format(i % 10) for i in range(n_words)]
-    T = 3 * n_words * eeg_sr
-    Ta = 3 * n_words * audio_sr
-    eeg = rng.randn(T, n_channels)
-    audio = np.zeros(Ta)
-    t_a = np.arange(2 * audio_sr) / audio_sr
-    for i, w in enumerate(words):
-        # deterministic per-word voice (NOT hash(): PYTHONHASHSEED randomizes
-        # str hashes per process, which made runs non-reproducible) and a
-        # broadband harmonic stack + breath noise so every mel bin carries
-        # voiced/unvoiced structure — a pure tone only excites two bins once
-        # spectral targets are computed exactly (docs/NUMERICS.md precision)
-        wid = int(w[1:]) % 5
-        f0 = 150 + 30 * wid
-        burst = np.sin(2 * np.pi * 120 * np.arange(2 * eeg_sr) / eeg_sr)
-        gain = 1.0 + wid * 0.4
-        eeg[i * 3 * eeg_sr : i * 3 * eeg_sr + 2 * eeg_sr, : n_channels // 2] += gain * burst[:, None]
-        voiced = sum((0.4 / h) * np.sin(2 * np.pi * h * f0 * t_a)
-                     for h in range(1, 26))
-        voiced += 0.02 * rng.randn(len(t_a))
-        audio[i * 3 * audio_sr : i * 3 * audio_sr + 2 * audio_sr] = 0.3 * voiced / np.abs(voiced).max()
-    markers = [["experimentStarted"]]
-    for w in words:
-        markers += [[f"start;{w}"], [f"end;{w}"]]
-    markers += [["experimentEnded"]]
-    loaders.save_hdf5(path, eeg, eeg_sr, audio, audio_sr,
-                      ch_names=[f"LA{i+1}" for i in range(n_channels)], markers=markers)
-    return eeg, words
+    s = synthetic_session(n_words, eeg_sr, audio_sr, n_channels, seed)
+    loaders.save_hdf5(path, s["eeg"], eeg_sr, s["audio"], audio_sr,
+                      ch_names=s["ch_names"], markers=s["markers"])
+    return s["eeg"], s["words"]
 
 
-def main(workdir="/tmp/seeg_demo"):
+def main(workdir=None):
+    workdir = workdir or os.path.join(tempfile.gettempdir(), "seeg_demo")
     os.environ.setdefault("NSX_REGISTRY_DIR", os.path.join(workdir, "nsx"))
     os.makedirs(workdir, exist_ok=True)
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+
+    setup_runtime()
 
     from closed_loop_seeg_speech_synthesis_tpu.cli import decode as decode_cli
     from closed_loop_seeg_speech_synthesis_tpu.cli import dev_streamer

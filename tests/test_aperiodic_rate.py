@@ -6,7 +6,7 @@ error and is effectively aperiodic.  The rebuild defines the grid in exact
 rational arithmetic (ops/framing.exact_frame_ends): ties round half-even on
 the true value, which makes the shift table exactly periodic (period 2q here)
 — so online decoding works at ANY rate and is bit-identical to offline
-(previous rounds refused such rates online; VERDICT r2 item #4).  At non-tie
+(earlier versions refused such rates online).  At non-tie
 rates (512/1024/2048 Hz) the exact grid equals the reference's float grid
 bit-for-bit (match /root/reference/livenodes/FrameBuffer.py:147-177).
 """

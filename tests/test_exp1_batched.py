@@ -72,7 +72,7 @@ def test_chance_level_batched_api(session, tmp_path):
 
 def test_chance_level_checkpoint_resume(session, tmp_path, monkeypatch):
     """Crash-resume parity of the protocol checkpointing: a run that dies
-    mid-fold (relay-worker crash, benchmarks/exp1_protocol.py) resumes from
+    mid-fold (a crashed process, benchmarks/exp1_protocol.py) resumes from
     the per-chunk checkpoints and returns EXACTLY the clean run's result
     (the shift stream is drawn upfront from the seeded rng, so a fresh
     process re-derives identical chunks)."""
@@ -94,7 +94,7 @@ def test_chance_level_checkpoint_resume(session, tmp_path, monkeypatch):
                 def flaky_runner(*ra):
                     calls["n"] += 1
                     if calls["n"] > fail_after:
-                        raise RuntimeError("simulated TPU worker crash")
+                        raise RuntimeError("simulated device worker crash")
                     return runner(*ra)
 
                 return flaky_runner, n_frames
@@ -113,7 +113,7 @@ def test_chance_level_checkpoint_resume(session, tmp_path, monkeypatch):
     clean_means, clean_stds = run()
 
     ck = str(tmp_path / "ckpt")
-    with pytest.raises(RuntimeError, match="simulated TPU worker crash"):
+    with pytest.raises(RuntimeError, match="simulated device worker crash"):
         run(ck=ck, fail_after=1)  # dies after 1 of 4 chunk calls
     import os
 

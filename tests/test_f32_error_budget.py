@@ -1,6 +1,6 @@
 """float32 device-path error budget on realistic sEEG statistics.
 
-The TPU decode path runs float32; the golden contract is float64.  The
+The device decode path runs float32; the golden contract is float64.  The
 decode output is discrete (per-bin argmax over LDA scores), so what matters
 is the label-flip rate under f32 rounding.  Random white noise understates
 realism: this test uses 1/f-shaped background + 50 Hz line noise + word-

@@ -1,8 +1,8 @@
 """Figure-layer oracle: the reference's figure_3.py / figure_4.py executed
 VERBATIM on artifact trees the rebuild produced.
 
-This retires the last reference programs never run as composed oracles
-(VERDICT r4 missing #2).  The recipe matches the other oracle modules:
+This covers the last reference programs otherwise never run as composed
+oracles.  The recipe matches the other oracle modules:
 import the actual reference sources via tests/refsys.py, shim only
 *runtime configuration* (Agg backend; ``matplotlib.rcParams['text.usetex'] =
 False`` — figure_3.py:28 sets a TeX rcParam this image has no TeX for), feed

@@ -89,8 +89,7 @@ def sys_ab(tmp_path_factory):
 
     # --- repo decode, the same params and the same draws -----------------
     cfg = pipeline.DecoderConfig(sr=float(EEG_SR), n_channels=eeg.shape[1],
-                                 dtype=jnp.float64, use_pallas_gl=False,
-                                 use_pallas_frontend=False)
+                                 dtype=jnp.float64)
     dec = pipeline.build_decoder_params(cfg, res.lda, res.medians, res.select)
     spec, audio_jnp = pipeline.offline_decode(
         dec, cfg, eeg, rand_init=rows[: spec_ref.shape[0] - 1])
@@ -149,7 +148,7 @@ def test_audio_byte_exact_host_vocoder(sys_ab):
 
 
 def test_audio_jnp_vocoder_quality(sys_ab):
-    """The production jnp/TPU vocoder against the reference stream: its
+    """The production jnp vocoder against the reference stream: its
     direct-DFT matmuls round differently from np.fft, and the exp(angle)
     recursion is chaotic, so byte-parity is a host-vocoder property; the
     waveforms still agree on >=95% of samples byte-for-byte with
@@ -239,8 +238,7 @@ def test_system_parity_2048hz(tmp_path):
         undo()
 
     cfg = pipeline.DecoderConfig(sr=2048.0, n_channels=eeg.shape[1],
-                                 packet_size=64, dtype=jnp.float64,
-                                 use_pallas_gl=False, use_pallas_frontend=False)
+                                 packet_size=64, dtype=jnp.float64)
     dec = pipeline.build_decoder_params(cfg, res.lda, res.medians, res.select)
     spec, _ = pipeline.offline_decode(dec, cfg, eeg,
                                       rand_init=rows[: spec_ref.shape[0] - 1])

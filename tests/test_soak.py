@@ -1,8 +1,8 @@
-"""Paced real-time soak (VERDICT r2 #8): the closed loop at true Micromed
+"""Paced real-time soak: the closed loop at true Micromed
 cadence for a full minute with the reference's bounded audio-queue policy.
 
 The heavy lifting lives in benchmarks/soak.py so the same harness produces
-the TPU bench artifact; this test runs it on the CI backend and asserts the
+an on-card soak; this test runs it on the CI backend and asserts the
 pass criteria: exact sample count, stall-attributed audio-queue health,
 p99 per-packet latency under the 31.25 ms cadence.
 """

@@ -1,24 +1,22 @@
-"""Regression guards for the XLA:TPU retrain-graph vmap miscompile.
+"""Regression guards for the retrain-graph vmap miscompile.
 
-Round-2 found that vmapping the whole exp1 retrain+decode program over the
-fold/run axis miscompiles on TPU at >=5 full-scale lanes (garbage LDA class
-means for leading lanes; see tools/vmap_miscompile_repro.py for the full
-story and the committed search harness).  Production batching therefore
-uses ``lax.map`` (exp1_batched.py:132-144,170-178).
+Vmapping the whole exp1 retrain+decode program over the fold/run axis has
+been miscompiled by XLA at >=5 full-scale lanes (garbage LDA class means for
+leading lanes; see tools/vmap_miscompile_repro.py for the story and the
+search harness).  Production batching therefore uses ``lax.map``
+(exp1_batched.py:132-144,170-178).
 
 These tests pin the contract that makes that safe: the batched runners must
 produce exactly what per-lane execution of the unbatched program produces.
-If a future change re-vmaps the lane axis, the TPU-backend test (or, at
-full scale, benchmarks/exp1_full.py's per-fold r assert) trips by name
-instead of surfacing as a silent r~=0 fold.
+If a future change re-vmaps the lane axis, this test (or, at full scale,
+benchmarks/exp1_full.py's per-fold r assert) trips by name instead of
+surfacing as a silent r~=0 fold.
 """
 
-import subprocess
-import sys
 import os
+import sys
 
 import numpy as np
-import pytest
 
 
 def _run_case(lanes=5, train_s=8.0, test_s=4.0, channels=8):
@@ -59,22 +57,3 @@ def test_production_runner_matches_perlane():
     for i in range(len(out)):
         r = np.corrcoef(out[i].ravel(), ref[i].ravel())[0, 1]
         assert r > 0.999, f"lane {i} diverged: r={r}"
-
-
-@pytest.mark.skipif(
-    "CLSS_TPU_REGRESSION" not in os.environ,
-    reason="TPU-backend miscompile guard; run on real hardware via "
-    "CLSS_TPU_REGRESSION=1 (or tools/vmap_miscompile_repro.py --mode map)")
-def test_tpu_map_clean_at_trigger_scale():
-    """On a real TPU, the production map path must stay clean at the scale
-    where the fold-axis vmap miscompiles.  Subprocess so the suite's forced
-    CPU platform doesn't apply."""
-    tool = os.path.join(os.path.dirname(__file__), "..", "tools",
-                        "vmap_miscompile_repro.py")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
-    proc = subprocess.run(
-        [sys.executable, tool, "--mode", "map", "--lanes", "6",
-         "--train-s", "60", "--channels", "64"],
-        capture_output=True, text=True, env=env, timeout=1800)
-    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,10 +1,9 @@
-"""Minimal repro for the XLA:TPU vmap miscompile in the exp1 retrain graph.
+"""Repro harness for an XLA vmap miscompile in the exp1 retrain graph.
 
-Observed 2026-08 (round 2, BENCHMARKS.md "Correctness note"): vmapping the
-whole retrain+decode program (`eval.exp1_batched._make_one_run`) over the
-fold/run axis at full scale (>=5 lanes x ~270 s train x 64 ch) produces
-garbage LDA class means for a leading contiguous range of lanes — lanes 0-1
-fully dead (decode r ~= 0), lane 2 partial — while
+Vmapping the whole retrain+decode program (`eval.exp1_batched._make_one_run`)
+over the fold/run axis at full scale (>=5 lanes x ~270 s train x 64 ch) has
+been seen to produce garbage LDA class means for a leading contiguous range
+of lanes — lanes 0-1 fully dead (decode r ~= 0), lane 2 partial — while
 
 * every returned INTERMEDIATE (shifted eeg, filtered signal, features,
   selected features, quantized labels) compares bit-exact against the
@@ -13,11 +12,12 @@ fully dead (decode r ~= 0), lane 2 partial — while
   batched eigh on extracted matrices) is clean.
 
 The corruption follows lane POSITION, not fold identity (permuting the fold
-order moves which folds die).  CPU is always clean.  The production code
-therefore uses ``lax.map`` over lanes (exp1_batched.py:132-144,170-178);
-this script is the committed evidence and search harness.
+order moves which folds die).  The CPU backend is always clean.  The
+production code therefore uses ``lax.map`` over lanes
+(exp1_batched.py:132-144,170-178); this script checks whether the active
+backend is affected, and whether the lanes could be batched there.
 
-Run (TPU attached):
+Run on the accelerator under test:
     python tools/vmap_miscompile_repro.py [--lanes 6] [--train-s 270]
         [--test-s 30] [--channels 64] [--mode vmap]
 
@@ -87,8 +87,8 @@ def build_case(lanes, train_s, test_s, channels, nb_feats, seed=0):
 
 
 def main(argv=None):
-    from closed_loop_seeg_speech_synthesis_tpu.utils import honor_platform_env
-    honor_platform_env()
+    from closed_loop_seeg_speech_synthesis_tpu.utils import setup_runtime
+    setup_runtime()
     ap = argparse.ArgumentParser()
     ap.add_argument("--lanes", type=int, default=6)
     ap.add_argument("--train-s", type=float, default=270.0)
